@@ -5,7 +5,8 @@ Re-derivation of the reference's M/X/Y/W recurrence
 padded predecessor arrays.  All DP arithmetic is float32 (dp_score_t) with
 the reference's exact per-candidate operation order, so scores are
 bit-identical; cells on one anti-diagonal are independent, which is also the
-parallelization axis of the Pallas TPU kernel (align/dp_jax.py).
+parallelization axis of the device fills (align/dp_jax.py,
+align/graph_dp_pallas.py).
 
 NaN semantics: C++ ``std::max(acc, cand)`` keeps ``acc`` when ``cand`` is
 NaN (comparison false).  Accumulators start at -inf, so NaN candidates are

@@ -1,6 +1,6 @@
-"""Device (TPU) graph-pair DP fill.
+"""Device graph-pair DP fill, one pair per call (``--engine device``).
 
-TPU-native formulation of the M/X/Y/W recurrence (align/dp.py): one
+Device formulation of the M/X/Y/W recurrence (align/dp.py): one
 ``lax.scan`` over anti-diagonals where the sequence-graph predecessor
 structure is re-expressed as *offset buckets*:
 
@@ -8,14 +8,13 @@ structure is re-expressed as *offset buckets*:
 
 so the per-cell predecessor max becomes, per (offset_i, offset_j) pair, a
 dynamic-slice of a previous diagonal plus a shift — no gathers inside the
-scan body (gathers inside TPU scans compile pathologically; offsets are
-traced scalars so one compilation serves every graph pair in a shape
-bucket).
+scan body (offsets are traced scalars so one compilation serves every
+graph pair in a shape bucket).
 
 Matrices are carried in diagonal coordinates Buf[d, y] (value of cell
-(y, x=d-y)); the S-matrix is one MXU GEMM.  Scores are float32 like the
+(y, x=d-y)); the S-matrix is one device GEMM.  Scores are float32 like the
 reference's dp_score_t; candidate op order matches align/dp.py so results
-agree except for MXU-vs-host GEMM rounding in S (the parity test suite uses
+agree except for device-vs-host GEMM rounding in S (the parity test suite uses
 the host path; this path feeds the bench/scale pipeline).
 
 Cross-reference: /root/reference/src/GraphAlign.h:201-280.

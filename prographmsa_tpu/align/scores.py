@@ -7,7 +7,7 @@ Re-derivation of /root/reference/src/GraphAlign.h:46-163:
   (the reference's USE_LS_LOG default).
 * ``precompute_scores``: the log-odds match matrix
   ``S = lslog( (g1ᵀ·(Mᵀ·g2)) / ((g1ᵀ·pi)(piᵀ·g2)) ) + match_init``
-  — one MXU-shaped GEMM per graph pair (GraphAlign.h:146-163).
+  — one GEMM per graph pair (GraphAlign.h:146-163).
 * ``ls_log_add``: bitwise reproduction of the reference's SSE2 fast-log2
   (ls_log.h:22-59), including the different rounding order between the
   4-wide vector body and the scalar tail, so S matches the binary bitwise.

@@ -23,9 +23,9 @@ from .engine.progressive import progressive_alignment
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="ProGraphMSA-TPU",
+        prog="ProGraphMSA-JAX",
         description="ProGraphMSA, fast multiple sequence alignment "
-                    "(TPU-native reimplementation)")
+                    "(JAX/GPU reimplementation)")
     a = p.add_argument
     a("sequences", help="input sequences (fasta file)")
     a("-o", "--output", default="", help="Output file name")
@@ -78,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     a("--engine", choices=("auto", "native", "numpy", "device", "pallas"),
       default="auto", help="DP kernel engine (all are bit-identical): "
       "auto = native C++ host kernels when available, numpy otherwise; "
-      "device = per-node JAX/TPU kernels")
+      "device = per-node JAX kernels")
     return p
 
 

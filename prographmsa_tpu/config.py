@@ -1,4 +1,4 @@
-"""Run configuration for ProGraphMSA-TPU.
+"""Run configuration for ProGraphMSA-JAX.
 
 Mirrors every CLI flag of the reference binary 1:1 (reference:
 /root/reference/src/main.h:37-82 `cmdlineopts_t` and src/main.cpp:37-246

@@ -5,11 +5,11 @@ count + GEMM:  count all DIM^K k-mers per sequence, cosine similarity of the
 count vectors via a single matmul, then the distance transform
 (DistanceFactoryAngle.h:115-128).
 
-This is the natural first TPU kernel: the cosine GEMM maps straight onto the
-MXU.  ``compute_angle_distances`` is the float64 host/parity path (matches
-the reference's double-precision Eigen GEMM, whose rounding decides NJ
-tie-breaks); the device/MXU form of the Gram matrix — exact for integer
-counts < 2^24 — is ``parallel.sharded.sharded_gram``, sharded over the mesh.
+``compute_angle_distances`` is the float64 host/parity path (matches the
+reference's double-precision Eigen GEMM, whose rounding decides NJ
+tie-breaks); the device form of the Gram matrix — exact for integer counts
+< 2^24 at "highest" precision — is ``compute_angle_distances_device``, and
+``parallel.sharded.sharded_gram`` shards it over a mesh.
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def _distance_transform(cos: np.ndarray, seq_len: np.ndarray, options):
 
 def compute_angle_distances_device(spec, seqs: Dict[str, np.ndarray],
                                    order: List[str], options):
-    """MXU port of the angle distance (VERDICT r3 #10): the k-mer count
+    """Device port of the angle distance: the k-mer count
     Gram matrix is one f32 matmul on the device; normalization and the
     distance transform stay float64 on the host.
 
@@ -83,7 +83,8 @@ def compute_angle_distances_device(spec, seqs: Dict[str, np.ndarray],
     counts, seq_len = kmer_counts(spec, seqs, order, spec.kmer_k)
     C = jnp.asarray(counts.astype(np.float32))
     G = np.asarray(jax.jit(
-        lambda c: jnp.dot(c, c.T, preferred_element_type=jnp.float32))(C)
+        lambda c: jnp.dot(c, c.T, precision="highest",
+                          preferred_element_type=jnp.float32))(C)
     ).astype(np.float64)
     with np.errstate(divide="ignore", invalid="ignore"):
         inv = 1.0 / np.sqrt(np.diag(G))

@@ -109,22 +109,14 @@ def compute_prealigned_distances(spec, seqs: Dict[str, np.ndarray],
 
     counts_b = gaps_b = None
     from ..engine_policy import use_device_prealigned
-    Lmsa = max((len(vals[name]) for name in order), default=0)
-    if pairs and use_device_prealigned(options, n_pairs=len(pairs), L=Lmsa,
-                                       count_bound=count_bound):
-        import sys
-        try:
-            from .prealigned_device import pair_stats_device
-            vmat = np.stack([vals[name] for name in order]).astype(np.int32)
-            gmat = np.stack([gapm[name] for name in order])
-            pi = np.fromiter((i for i, _ in pairs), np.int32, len(pairs))
-            pj = np.fromiter((j for _, j in pairs), np.int32, len(pairs))
-            counts_b, gaps_b = pair_stats_device(vmat, gmat, pi, pj,
-                                                 count_bound, spec.DIM)
-        except Exception as e:  # noqa: BLE001 — deterministic host retry
-            print("warning: device prealigned stats failed (%r); "
-                  "recomputing on host" % (e,), file=sys.stderr)
-            counts_b = gaps_b = None
+    if pairs and use_device_prealigned(options):
+        from .prealigned_device import pair_stats_device
+        vmat = np.stack([vals[name] for name in order]).astype(np.int32)
+        gmat = np.stack([gapm[name] for name in order])
+        pi = np.fromiter((i for i, _ in pairs), np.int32, len(pairs))
+        pj = np.fromiter((j for _, j in pairs), np.int32, len(pairs))
+        counts_b, gaps_b = pair_stats_device(vmat, gmat, pi, pj,
+                                             count_bound, spec.DIM)
     if counts_b is None and len(pairs) > 8:
         # vectorized host path: ONE bincount over all pairs' column codes
         # plus a forward-filled gap-state scan — replaces the O(N²) Python

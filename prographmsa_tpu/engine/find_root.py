@@ -187,7 +187,7 @@ def progressive_alignment_find_root(spec, sequences, tree, repeats,
     if options.reroot_flag == 1:
         # -r evaluates EVERY edge, so every directional subtree alignment
         # will be needed: compute them wave-by-wave with independent
-        # alignments of a wave sharded across host cores (VERDICT r4 #4 —
+        # alignments of a wave sharded across host cores (
         # the reference walks them strictly sequentially,
         # FindRoot.h:234-337).  Each task is a pure function writing its
         # own cache slot, so results equal the sequential order's.

@@ -47,9 +47,9 @@ def align_graphs(g1: Graph, g2: Graph, model, options,
         with timings.phase("scores"):
             scores = DynProgScores(g1, g2, model, options)
     if engine == "pallas":
-        # fused on-device fill + backtrack (align/graph_dp_pallas.py): S is
-        # computed on device, only the mappings come back; bails to the
-        # host engines on bucket overflow or repeat-edge paths
+        # fused on-device fill + backtrack (align/graph_dp_pallas.py): only
+        # the mappings come back; a pair over the device caps (counted)
+        # falls through to the host engines below
         with timings.phase("dp_device"):
             from ..align.graph_dp_pallas import align_pair_device
             res = align_pair_device(g1, g2, model, scores)

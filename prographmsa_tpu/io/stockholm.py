@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-VERSION_TAG = "ProGraphMSA-TPU"
+VERSION_TAG = "ProGraphMSA-JAX"
 
 
 def write_stockholm(alignment: Dict[str, str], order: List[str], tree,

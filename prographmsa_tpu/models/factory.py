@@ -6,7 +6,7 @@ ModelFactoryDarwin.cpp, ModelFactoryEcm.cpp, ModelFactoryCustom.h,
 ModelFactoryPlusF.h) in numpy:
 
 * ``P(d) = V · diag(exp(sigma·d)) · Vi`` with (V, sigma, Vi) from one host
-  eigendecomposition of the normalized rate matrix Q — the TPU-friendly expm:
+  eigendecomposition of the normalized rate matrix Q — the batched expm:
   the eigendecomposition happens once per Q, after which P for a whole batch
   of branch lengths is a single einsum (see distances/ml.py::_batched_P).
 * Empirical matrices (WAG / GONNET-Darwin / ECM) are loaded from extracted

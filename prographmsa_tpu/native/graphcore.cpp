@@ -1,9 +1,9 @@
 // graphcore: native host engine for the hot per-node-pair kernels.
 //
-// This is the C++ tier of the framework's runtime (the TPU tier is the
-// batched Pallas path in align/graph_dp_pallas.py): on
-// hosts where device round-trips would dominate (tunneled or small
-// problems), these routines run the same recurrences at native speed.
+// This is the C++ tier of the framework's runtime (the device tier is the
+// batched GPU path in align/graph_dp_pallas.py): on hosts without a GPU,
+// and for pairs the device path leaves, these routines run the same
+// recurrences at native speed.
 //
 // Numerical contract: bit-identical float32 results with align/dp.py /
 // align/backtrack.py (which in turn reproduce

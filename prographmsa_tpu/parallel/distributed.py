@@ -1,26 +1,24 @@
 """Multi-host (multi-controller) JAX scaffolding.
 
 The reference is strictly single-process (SURVEY §2.5: no MPI/NCCL/threads
-anywhere).  The TPU-native replacement for scale-out is multi-controller
-JAX: every host runs the same program, ``jax.distributed.initialize``
-wires the hosts into one global device mesh, and the existing
-``shard_map`` programs (parallel/sharded.py) then shard over ALL hosts'
-devices — collectives ride ICI within a slice and DCN across slices with
-no further code changes (the mesh in ``parallel/mesh.py`` is built from
+anywhere).  The replacement for scale-out is multi-controller JAX: every
+host runs the same program, ``jax.distributed.initialize`` wires the hosts
+into one global device mesh, and the existing ``shard_map`` programs
+(parallel/sharded.py) then shard over ALL hosts' devices with no further
+code changes (the mesh in ``parallel/mesh.py`` is built from
 ``jax.devices()``, which becomes the global device list).
 
 Activation is explicit and environment-driven (the CLI on a laptop must
 never try to join a cluster):
 
   PROGRAPHMSA_DIST=1                    enable
-  PROGRAPHMSA_COORD=host0:8476          coordinator address   (optional on
-                                        TPU pods — libtpu autodetects)
+  PROGRAPHMSA_COORD=host0:8476          coordinator address
   PROGRAPHMSA_NUM_PROCESSES / PROGRAPHMSA_PROCESS_ID
-                                        explicit topology     (optional)
+                                        explicit topology
 
-On TPU pod slices all three optionals can be omitted: jax.distributed
-reads the TPU metadata.  ``shutdown()`` is registered atexit so the
-coordinator service winds down cleanly.
+On GPU hosts all three are needed: nothing tells JAX of the cluster.
+``shutdown()`` is registered atexit so the coordinator service winds down
+cleanly.
 """
 
 from __future__ import annotations

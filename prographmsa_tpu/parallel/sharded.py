@@ -6,7 +6,7 @@ Everything here is `shard_map` over a 1-D ``pairs`` mesh axis:
   (distances/nw_device.py) data-parallel over pair batches; no collectives
   (pairs are independent), results gathered by the output sharding.
 * ``sharded_gram`` — the angle-distance cosine Gram matrix: rows sharded,
-  one ``all_gather`` of the (small) count matrix per device, local MXU GEMM
+  one ``all_gather`` of the (small) count matrix per device, local GEMM
   block (DistanceFactoryAngle.h:115 at scale).
 * ``sharded_freq_hist`` — the +F residue histogram as a ``psum``
   (ModelFactoryPlusF.h:72-106's count loop, sharded over sequences).
@@ -19,21 +19,14 @@ Everything here is `shard_map` over a 1-D ``pairs`` mesh axis:
 
 from __future__ import annotations
 
-import numpy as np
-
 
 def _shard_map(fn, mesh, in_specs, out_specs):
     # check_vma=False: our scan carries start from broadcast constants
     # (-inf/zero init rows) which the varying-manual-axes checker rejects
     # even though every per-shard computation is independent.
     import jax
-    try:
-        return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-    except AttributeError:
-        from jax.experimental.shard_map import shard_map
-        return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def sharded_nw_counts(mesh, s1b, s2b, l1, l2, scoring, go: int, ge: int,
@@ -58,15 +51,15 @@ def sharded_nw_counts(mesh, s1b, s2b, l1, l2, scoring, go: int, ge: int,
 
 def sharded_gram(mesh, counts_f32):
     """Cosine-GEMM Gram matrix with rows sharded over the mesh: each device
-    all_gathers the count matrix (tiny: N x DIM^K) and emits its row block
-    on the MXU."""
+    all_gathers the count matrix (tiny: N x DIM^K) and emits its row
+    block."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
     def block(c_local):
         c_all = jax.lax.all_gather(c_local, "pairs", axis=0, tiled=True)
-        return jnp.dot(c_local, c_all.T,
+        return jnp.dot(c_local, c_all.T, precision="highest",
                        preferred_element_type=jnp.float32)
 
     f = _shard_map(block, mesh, (P("pairs"),), P("pairs"))
@@ -99,8 +92,7 @@ def make_pipeline_step(mesh, nw_shapes, scoring_shape,
     stages run under a single ``jax.jit`` with mesh shardings, so XLA lays
     out the collectives.  (The guide-tree alignment stage is NOT a toy
     stage here any more — the dryrun exercises the production
-    ``align_pairs_device`` level batch under the same mesh directly;
-    VERDICT r4 #9.)"""
+    ``align_pairs_device`` level batch under the same mesh directly.)"""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
@@ -114,7 +106,7 @@ def make_pipeline_step(mesh, nw_shapes, scoring_shape,
         counts, gaps, wf = kern(s1b, s2b, l1, l2, scoring)
 
         c_all = jax.lax.all_gather(kmer_counts, "pairs", axis=0, tiled=True)
-        gram = jnp.dot(kmer_counts, c_all.T,
+        gram = jnp.dot(kmer_counts, c_all.T, precision="highest",
                        preferred_element_type=jnp.float32)
 
         oh = jax.nn.one_hot(jnp.clip(values, 0, dim - 1), dim,

@@ -1,8 +1,8 @@
-"""MXU angle-distance port vs the f64 host parity path.
+"""Device angle-distance port vs the f64 host parity path.
 
 The device Gram is one f32 matmul over integer k-mer counts; the distance
 transform stays f64 on host.  Measured divergence vs the Eigen-order f64
-path is ~1e-15 (BASELINE.md); these tests pin that bound and assert the
+path is ~1e-15; these tests pin that bound and assert the
 guide trees and distances stay equivalent on the golden corpus.  The
 device path is gated behind the explicit device/pallas engines
 (engine_policy.use_device_angle) — ``auto`` keeps bit parity.

@@ -1,13 +1,14 @@
-"""Deterministic shard retry: a failed device/mesh NW launch recomputes the
-same pure function on the fallback path and yields identical distances."""
+"""A device failure is an error: it is never recomputed on the host behind
+the user's back.  An injected failure of the sharded or the single-device
+NW launch raises, and the CLI exits non-zero."""
 
-import numpy as np
 import pytest
 
 from prographmsa_tpu.config import Options
 from prographmsa_tpu.alphabet import AA_SPEC
 from prographmsa_tpu.io.fasta import read_fasta
 import prographmsa_tpu.distances.align as A
+import prographmsa_tpu.distances.nw_device as nwd
 import prographmsa_tpu.parallel.sharded as sharded
 
 
@@ -22,38 +23,27 @@ def _seqs():
     return out
 
 
-def test_sharded_failure_recovers_identically(monkeypatch):
+def _boom(*a, **kw):
+    raise RuntimeError("injected device failure")
+
+
+def test_sharded_failure_raises(monkeypatch):
     opts = Options(mldist_flag=True, nwdist_flag=True, engine="device")
     from prographmsa_tpu.models.factory import WagModelFactory
-    fac = WagModelFactory()
     seqs = _seqs()
-    order = sorted(seqs)
-
-    baseline = A.compute_nw_distances(AA_SPEC, seqs, order, fac, opts)
-
-    def boom(*a, **kw):
-        raise RuntimeError("injected shard failure")
-
-    monkeypatch.setattr(sharded, "sharded_nw_counts", boom)
-    recovered = A.compute_nw_distances(AA_SPEC, seqs, order, fac, opts)
-    assert np.array_equal(np.asarray(baseline[0]), np.asarray(recovered[0]))
-    assert np.array_equal(np.asarray(baseline[1]), np.asarray(recovered[1]))
+    monkeypatch.setattr(sharded, "sharded_nw_counts", _boom)
+    with pytest.raises(RuntimeError, match="injected"):
+        A.compute_nw_distances(AA_SPEC, seqs, sorted(seqs),
+                               WagModelFactory(), opts)
 
 
-def test_device_failure_falls_back_to_native(monkeypatch):
-    opts = Options(mldist_flag=True, nwdist_flag=True, engine="device")
-    from prographmsa_tpu.models.factory import WagModelFactory
-    import prographmsa_tpu.distances.nw_device as nwd
-    fac = WagModelFactory()
-    seqs = _seqs()
-    order = sorted(seqs)
+def test_device_failure_exits_cli_nonzero(monkeypatch, capsys):
+    from prographmsa_tpu import cli
 
-    baseline = A.compute_nw_distances(AA_SPEC, seqs, order, fac, opts)
-
-    def boom(*a, **kw):
-        raise RuntimeError("injected device failure")
-
-    monkeypatch.setattr(sharded, "sharded_nw_counts", boom)
-    monkeypatch.setattr(nwd, "nw_counts_device", boom)
-    recovered = A.compute_nw_distances(AA_SPEC, seqs, order, fac, opts)
-    assert np.array_equal(np.asarray(baseline[0]), np.asarray(recovered[0]))
+    monkeypatch.setattr(sharded, "sharded_nw_counts", _boom)
+    monkeypatch.setattr(nwd, "_make_kernel",
+                        lambda *a, **k: _boom)
+    rc = cli.main(["--fasta", "--mldist", "--nwdist", "--engine", "device",
+                   "fixtures/fam6.fasta"])
+    assert rc != 0
+    assert "injected device failure" in capsys.readouterr().err

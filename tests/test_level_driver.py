@@ -17,7 +17,7 @@ def _run(opts):
     write_fasta(aligned, get_tree_order(all_trees[-1], opts), buf)
     return buf.getvalue()
 
-def test_level_driver_matches_sequential():
+def test_level_driver_matches_sequential(interpret_fill):
     base = Options(sequence_file="x", fasta_flag=True)
     a = _run(base.replace(engine="native"))
     b = _run(base.replace(engine="pallas"))

@@ -1,12 +1,11 @@
 """Long sequences on the device DP path (SURVEY §5 long-context row).
 
-The fill kernel streams its DP planes to HBM in 8-row DMA windows, so its
-VMEM working set is independent of sequence length — there is no bucket
-ceiling beyond HBM capacity (the round-2 design capped out at 512 because
-the planes lived in VMEM).  This test runs a 500-residue pair through
-``align_pairs_device`` (interpret mode on CPU; the identical kernel runs
-on hardware — a 2000-residue pair is exercised on the real v5e in
-BASELINE.md's long-sequence table) and checks mappings against the host
+The fill keeps only a ring of recent diagonals and writes the code plane
+to device memory, so its working set per program is a few rows whatever
+the sequence length: the only ceiling is device memory (MAX_N per side).
+This test runs a 500-residue pair through ``align_pairs_device`` (the
+fill in the Pallas interpreter on the CPU; chip_smoke.py runs the compiled
+kernel on 8 x 2000-residue pairs) and checks mappings against the host
 engine bit-for-bit.
 """
 
@@ -34,7 +33,7 @@ def test_long_pair_500():
     model = mf.get_model(0.7, opts, 0.7)
     scores = DynProgScores(g1, g2, model, opts)
 
-    res = align_pairs_device([(g1, g2, model, scores)])[0]
+    res = align_pairs_device([(g1, g2, model, scores)], interpret=True)[0]
     assert res is not None, "long pair left the device path"
     aln, _ = align_graphs(g1, g2, model, opts)
     assert list(res[0]) == list(aln.mapping1)

@@ -1,9 +1,9 @@
-"""Mesh-sharded Pallas level batch: the graph-pair DP spread over devices.
+"""Mesh-sharded level batch: the graph-pair DP spread over devices.
 
-The whole fill+chase+pack pipeline runs under one shard_map over the
-groups axis of the 8-device virtual mesh (VERDICT r3 item 2: the
-alignment stage itself — not just NW distances — must have a multi-chip
-story).  Results must be byte-identical to the host engines.
+The whole fill+chase pipeline runs under one shard_map over the pairs
+axis of the 8-device virtual mesh (the alignment stage itself — not just
+NW distances — has a multi-device path).  Results must be byte-identical
+to the host engines.
 """
 
 import numpy as np

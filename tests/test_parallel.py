@@ -66,4 +66,4 @@ def test_dryrun_multichip_entrypoint():
     fn, args = ge.entry()
     out = fn(*args)
     jax.block_until_ready(out)
-    ge.dryrun_multichip(min(8, len(jax.devices())))
+    ge.dryrun_multichip(min(8, len(jax.devices())), interpret=True)

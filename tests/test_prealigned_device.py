@@ -2,7 +2,7 @@
 
 The host loop (`distances/prealigned._pair_stats`) is itself golden-tested
 against the reference binary through the iteration-2 e2e cases; here the
-device kernel (MXU one-hot GEMM + column scan) must match it exactly on
+device kernel (one-hot GEMM + column scan) must match it exactly on
 random gapped MSAs across alphabets, including the count_bound quirk
 (reference Prealigned.h:65 counts only values < 20).
 """

@@ -1,6 +1,6 @@
 #!/bin/bash
 # Run the reference oracle binary on the fixtures to produce the golden
-# corpus (BASELINE.md: "First build-phase action").
+# corpus.
 set -e
 cd "$(dirname "$0")/.."
 REF=/root/reference/bin/ProGraphMSA_64
